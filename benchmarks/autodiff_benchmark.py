@@ -1,7 +1,7 @@
 """Autodiff benchmark (reference internal/ceres/autodiff_benchmarks/):
 linearization throughput per cost function — the reference's full set,
 from a trivial constant cost to Disney-BRDF and photometric-patch costs.
-The TPU analog measures the full vmapped jacfwd bucket evaluation
+This version measures the full vmapped jacfwd bucket evaluation
 (residuals + Jacobians per second), since that is the unit of work the
 evaluator issues.
 

@@ -3,16 +3,7 @@ across solver configurations (the reference's evaluation_benchmark.cc role
 at the whole-solve level).
 
 Usage: python -m benchmarks.ba_scaling_benchmark [--cpu] [--quick]
-
-Measured 2026-08-20 (round 5) on one TPU v5e chip (warm full solve from
-the perturbed start, mixed precision, fused eliminator + round-5
-kernels; capture benchmarks/hw_r5/ba_scaling_mid2.log):
-  4 cams/2k pts/8k obs    DENSE_SCHUR      0.029 s (3 LM iters)
-  16/22k/84k              DENSE_SCHUR      0.061 s (3)   [round 3: 0.36]
-  64/30k/150k             ITERATIVE_SCHUR  0.132 s (8)   [round 3: 0.81]
-  256/50k/300k            ITERATIVE_SCHUR  0.964 s (7)   [round 3: 3.1]
-  1024/200k/1M (--large)  ITERATIVE_SCHUR  26.1 s (25, implicit)
-                                           [round 3: 27.9 s / 33 iters]
+       [--large]
 """
 
 from __future__ import annotations
@@ -56,31 +47,10 @@ def main(argv=None):
             linear_solver_type=ct.LinearSolverType[solver],
             preconditioner_type=ct.PreconditionerType.SCHUR_JACOBI,
             use_mixed_precision_solves=True,
-            # --large: 45 caps the single fused dispatch below the
-            # remote worker's execution watchdog (a 150-iteration
-            # dispatch at ~1.3 s/iteration crashed the worker twice in
-            # round 5); the problem converges in ~33-34 iterations.
-            max_num_iterations=45 if "--large" in sys.argv else 50,
+            max_num_iterations=50,
             function_tolerance=1e-6,
             max_linear_solver_iterations=100,
             fused_iterations=True)
-        if solver == "ITERATIVE_SCHUR":
-            # report which implicit-apply implementation is active
-            from ceres_tpu.program import CompiledProgram
-            from ceres_tpu.solvers.schur import detect_schur_structure
-            from ceres_tpu.solvers.schur_fused import (
-                fused_schur_supported, make_fused_schur_lm_step)
-            prog_probe = CompiledProgram.get_cached(problem, options)
-            meta_probe = detect_schur_structure(prog_probe, options)
-            if meta_probe is not None and fused_schur_supported(
-                    prog_probe, options, meta_probe):
-                step_probe = make_fused_schur_lm_step(
-                    prog_probe, options, meta_probe)
-                print(f"# fused={True} pallas_implicit="
-                      f"{getattr(step_probe, 'pallas_implicit', False)} "
-                      f"pallas_pcg="
-                      f"{getattr(step_probe, 'pallas_pcg', False)}",
-                      flush=True)
         cam0 = [c.copy() for c in cams]
         pt0 = [pp.copy() for pp in pts]
         s = ct.solve(options, problem)          # warmup (compile)
@@ -99,6 +69,8 @@ def main(argv=None):
             "pcg_iterations": int(s.num_linear_solver_iterations or 0),
             "final_cost": s.final_cost,
             "termination": str(s.termination_type),
+            "platform": jax.devices()[0].platform,
+            "device_kind": jax.devices()[0].device_kind,
         }), flush=True)
     return 0
 

@@ -5,7 +5,7 @@ The serving-rate benchmark for the ct.solve_batched API (batch.py): a
 RANSAC / per-frame-refinement shaped workload where the unit of work is
 a batch of small solves. Sequential solves pay the per-call dispatch
 cost K times and leave the chip idle between calls; the batched program
-pays it once and keeps the MXU/VPU busy with batched contractions.
+pays it once and keeps the device busy with batched contractions.
 
 Usage: python -m benchmarks.batch_benchmark [--cpu] [--batch K]
        python -m benchmarks.batch_benchmark --sweep [--batch K]

@@ -1,6 +1,7 @@
 """Shared micro-benchmark harness (the role of google/benchmark in the
 reference's internal/ceres/*_benchmark.cc suites). Each benchmark prints
-one JSON line per case: {"name": ..., "time_ms": ..., extras...}."""
+one JSON line per case: {"name": ..., "time_ms": ..., "platform": ...,
+"device_kind": ..., extras...}."""
 
 from __future__ import annotations
 
@@ -11,10 +12,14 @@ import time
 
 
 def setup_platform():
-    """--cpu flag or CERES_TPU_FORCE_CPU force the host backend."""
+    """--cpu flag or CERES_TPU_FORCE_CPU force the host backend; every row
+    names the device it ran on. Turns on the persistent compilation
+    cache."""
     import jax
     if "--cpu" in sys.argv or os.environ.get("CERES_TPU_FORCE_CPU"):
         jax.config.update("jax_platforms", "cpu")
+    from ceres_tpu.config import enable_compilation_cache
+    enable_compilation_cache()
     return jax
 
 
@@ -26,7 +31,10 @@ def bench(name: str, fn, *, warmup: int = 2, iters: int = 10, **extras):
     for _ in range(iters):
         fn()
     dt = (time.perf_counter() - t0) / iters
-    row = {"name": name, "time_ms": round(dt * 1e3, 4), **extras}
+    import jax
+    d = jax.devices()[0]
+    row = {"name": name, "time_ms": round(dt * 1e3, 4),
+           "platform": d.platform, "device_kind": d.device_kind, **extras}
     print(json.dumps(row), flush=True)
     return dt
 

@@ -1,7 +1,8 @@
-"""ceres_tpu: a TPU-native nonlinear least-squares and general minimization
-framework (JAX/XLA/Pallas), with the capabilities of Ceres Solver 2.2.0.
+"""ceres_tpu: an accelerator-native nonlinear least-squares and general
+minimization framework (JAX/XLA), with the capabilities of Ceres Solver
+2.2.0.
 
-Built from scratch, TPU-first: residual blocks evaluate as vmapped XLA
+Built from scratch for the accelerator: residual blocks evaluate as vmapped XLA
 batches, Jacobians via jax.jacfwd composed with manifold retractions,
 trust-region / line-search outer loops drive jitted linearize+solve steps,
 and bundle-adjustment Schur elimination runs as batched segmented

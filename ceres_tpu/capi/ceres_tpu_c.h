@@ -1,4 +1,4 @@
-/* ceres_tpu C API — C89 wrapper over the TPU-native solver.
+/* ceres_tpu C API — C89 wrapper over the JAX solver.
  *
  * Capability parity with the reference's include/ceres/c_api.h:123-138:
  * create a problem, add residual blocks with C function-pointer costs and

@@ -11,7 +11,7 @@ DynamicAutoDiffCostFunction / DynamicNumericDiffCostFunction
 (cost_function_to_functor.h:104), ConditionedCostFunction
 (conditioned_cost_function.h:74), NormalPrior (normal_prior.h:60).
 
-TPU-first design: there is no Jet type — `jax.jacfwd` over the traced functor
+Design: there is no Jet type — `jax.jacfwd` over the traced functor
 *is* forward-mode dual-number AD, batched with vmap over all residual blocks
 sharing a functor. A functor is either
   * a plain function `f(*param_arrays) -> residual_array`, or
@@ -198,7 +198,7 @@ class NumericDiffCostFunction(CostFunction):
     method: FORWARD | CENTRAL | RIDDERS (types.h:446-457). The derivative
     engine (internal/numeric_diff.h:61) is re-expressed as batched, vmapped
     perturbation stencils — all probe evaluations for one parameter block run
-    as a single batched call on the TPU.
+    as a single batched call on the device.
     """
 
     def __init__(self, functor, method=NumericDiffMethodType.CENTRAL,

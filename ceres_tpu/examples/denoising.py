@@ -6,7 +6,7 @@ filter i and every patch position, a linear filter response F_i . X under
 the FieldsOfExpertsLoss rho(s) = alpha_i log(1 + s/2) — a large sparse grid
 problem, the reference's CGNR workload (BASELINE config 4).
 
-TPU-first deviation from the reference's build: the reference adds one
+Deviation from the reference's build: the reference adds one
 1-pixel parameter block per pixel and d*d-block residuals; here the patch
 pixels are still separate 1-d parameter blocks (identical solver structure/
 sparsity), and all patch positions for one filter form a single vmapped

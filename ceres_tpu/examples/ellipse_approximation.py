@@ -5,8 +5,8 @@ Each data point y_i gets a preimage parameter t_i on the contour; the
 residual y_i - ((1-u) X[i0] + u X[i1]) structurally touches the whole
 contour X but dynamically only two control points. The reference handles
 this with dynamic_sparsity=true re-analysis of the Jacobian each iteration
-(PointToLineSegmentContourCostFunction, ellipse_approximation.cc). The
-TPU-native design instead keeps X as ONE parameter block and gathers the
+(PointToLineSegmentContourCostFunction, ellipse_approximation.cc). This
+design instead keeps X as ONE parameter block and gathers the
 two active control points with traced indices inside the cost — runtime
 sparsity without any host-side sparsity re-analysis, solved matrix-free
 (CGNR) or densely. `dynamic_sparsity=True` is accepted for API parity.

@@ -7,7 +7,7 @@ blocks are partitioned into independent sets; each set's blocks are
 optimized independently with the others held fixed (the reference spins up
 one DENSE_QR LM per block on a thread pool).
 
-TPU-first design: all blocks of one independent set solve SIMULTANEOUSLY as
+Design: all blocks of one independent set solve SIMULTANEOUSLY as
 a batched damped-Newton update from the block-diagonal of J^T J and the
 block gradients — one fused device call per (set, inner step) instead of
 thousands of tiny CPU solves. Independence of the set makes the batched

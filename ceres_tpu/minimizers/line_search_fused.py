@@ -13,7 +13,7 @@ arithmetic: every host `if` becomes `jnp.where` / `lax.cond`, the LBFGS
 history a fixed `[m, n]` rolling buffer with masked two-loop recursion.
 
 No reference analog runs the minimizer on an accelerator; this is the
-TPU-native extension for gradient-problem serving (one dispatch per
+device-loop extension for gradient-problem serving (one dispatch per
 solve instead of one per probe).
 """
 

@@ -1,9 +1,9 @@
 // Host-side native runtime for ceres_tpu: sparse direct Cholesky.
 //
-// TPU-native equivalent of the reference's SuiteSparse/Eigen sparse backends
+// Equivalent of the reference's SuiteSparse/Eigen sparse backends
 // (internal/ceres/suitesparse.{h,cc}, eigensparse.cc, sparse_cholesky.cc):
-// the TPU evaluates residuals/Jacobians and forms per-bucket Gram blocks on
-// the MXU; this library owns the host half of SPARSE_NORMAL_CHOLESKY —
+// the accelerator evaluates residuals/Jacobians and forms per-bucket Gram
+// blocks; this library owns the host half of SPARSE_NORMAL_CHOLESKY —
 // fill-reducing ordering, simplicial LDL^T factorization with a reusable
 // symbolic analysis (analyze once, refactor every iteration), triangular
 // solves, and fast scatter-assembly of block Gram values into the CSC

@@ -1,13 +1,13 @@
-"""Bucketed block-sparse Jacobian: the TPU-native BlockSparseMatrix.
+"""Bucketed block-sparse Jacobian: the device-native BlockSparseMatrix.
 
 Replaces the reference's L1 matrix kernels (block_sparse_matrix.{h,cc},
 block_structure.h, small_blas.h, partitioned_matrix_view) with a layout
-designed for the MXU: residual blocks are grouped into shape-uniform
+designed for batched dense contractions: residual blocks are grouped into shape-uniform
 *buckets*; a bucket's Jacobian is one dense tensor [n_blocks, r, t_total]
 (r = residual size, t_total = sum of the tangent sizes of the parameter
 slots). SpMV, J^T v, squared column norms, and J^T J block-diagonals are
-batched einsums + scatter-adds — exactly the shapes XLA tiles onto the
-systolic array, with no scalar block loops (contrast small_blas.h's
+batched einsums + scatter-adds — shapes XLA compiles to dense batched
+kernels, with no scalar block loops (contrast small_blas.h's
 hand-unrolled small GEMMs).
 
 Column indexing: slot s of bucket k stores an int32 gather map
@@ -36,7 +36,7 @@ class BucketJacobian:
     cols: tuple over variable slots of [n, t_s] int32 global column indices.
     onehots: optional tuple over slots of [n, k_s] f32 block one-hots (or
         None per slot) — when present, transpose-side accumulations run as
-        one-hot matmuls on the MXU instead of duplicate-heavy scatters.
+        one-hot matmuls instead of duplicate-heavy scatters.
     gcols: tuple over slots of [k_s, t_s] int32 group tangent columns
         (aligned with onehots; None when the slot has no one-hot).
     """

@@ -3,7 +3,7 @@
 Capability parity with the reference's parameter_block_ordering.cc
 (IndependentSetOrdering graph_algorithms.h:98, ComputeSchurOrdering
 parameter_block_ordering.h:61). Fill-reducing AMD/NESDIS orderings for
-sparse direct factorization are intentionally absent: on TPU the direct
+sparse direct factorization are intentionally absent: the device direct
 path factorizes batched dense blocks (see solvers/dense.py rationale), so
 only the independent-set (Schur) ordering is structurally meaningful.
 """

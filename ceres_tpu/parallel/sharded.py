@@ -1,11 +1,11 @@
 """Multi-chip execution: residual-block data parallelism over a device mesh.
 
-This is the TPU replacement for the reference's execution substrate (L0:
+This is the replacement for the reference's execution substrate (L0:
 ThreadPool/ParallelFor, internal/ceres/parallel_for.h) and its absent
 distributed backend (SURVEY.md section 5.8): residual blocks shard across
 mesh devices along a 'data' axis; the parameter/tangent state replicates;
 gradient, J^T J diagonals, preconditioner blocks, Schur contributions, and
-CG inner products reduce with jax.lax.psum over ICI.
+CG inner products reduce with jax.lax.psum over the device interconnect.
 
 Mechanics: each bucket's per-row arrays (stacked functor data, ambient
 gather indices, tangent column maps, Jacobi-group local ids) are padded to a

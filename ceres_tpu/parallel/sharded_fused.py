@@ -587,7 +587,7 @@ def make_sharded_fused_solve(program, options, meta, mesh: Mesh,
         else:
             # ---- implicit (matrix-free) sharded ITERATIVE_SCHUR ----
             # The shard-local chunk tensors ARE the operator; each CG
-            # application costs a handful of VPU broadcast products, one
+            # application costs a handful of broadcast products, one
             # camera-chunk gather+sum, and exactly one psum of [kf, tf]
             # (the reduced-space residual). A is never materialized.
             sstore = []

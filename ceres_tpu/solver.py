@@ -5,7 +5,7 @@ validate -> preprocess -> minimize -> summarize) and the trust-region
 preprocessor (trust_region_preprocessor.cc:374: reduced program, linear
 solver selection + downgrades :75-107, evaluator setup).
 
-The TPU design compiles one jitted `linearize_and_step` function per
+The design compiles one jitted `linearize_and_step` function per
 (problem structure, options) pair: Jacobian evaluation, Jacobi scaling, LM
 damping, and the linear solve all fuse into a single device program; the
 host loop sees only scalars.
@@ -41,13 +41,11 @@ def _make_linear_solver(program, options):
         return lambda jac, res, D: dense_solvers.solve_dense_qr(jac, res, D)
     if t in (LinearSolverType.DENSE_NORMAL_CHOLESKY,
              LinearSolverType.SPARSE_NORMAL_CHOLESKY):
-        # SPARSE_NORMAL_CHOLESKY, large problems: device computes Gram
-        # blocks + rhs on the MXU; a host callback scatters them into a
-        # cached CSC pattern and runs the native C++ LDL^T (the
-        # SuiteSparse role; see solvers/sparse_direct.py). Small problems:
-        # the dense factorization IS the fast path — the MXU eats dense
-        # Cholesky, and CHOLMOD-style supernodal sparsity does not map to
-        # TPU. dynamic_sparsity=True re-analyzes the numerical pattern
+        # SPARSE_NORMAL_CHOLESKY, large problems: the device computes Gram
+        # blocks + rhs; a host callback scatters them into a cached CSC
+        # pattern and runs the native C++ LDL^T (the SuiteSparse role; see
+        # solvers/sparse_direct.py). Small problems: the dense device
+        # factorization IS the fast path. dynamic_sparsity=True re-analyzes the numerical pattern
         # each factorization on the native path (sparse_direct.py).
         if t == LinearSolverType.SPARSE_NORMAL_CHOLESKY:
             from . import native as _native
@@ -151,12 +149,8 @@ def make_step_fn(program, options):
     return call
 
 
-def make_step_impl(program, options, batched: bool = False):
-    """Raw (unjitted) step closure — also the body of the fused solve.
-
-    batched=True means the caller will vmap the step over a problem axis
-    (batch.py); the pallas lin-phase front-end has no batching rule, so
-    the fused step is built without it."""
+def make_step_impl(program, options):
+    """Raw (unjitted) step closure — also the body of the fused solve."""
     import os as _os
     if (options.trust_region_strategy_type
             == TrustRegionStrategyType.LEVENBERG_MARQUARDT
@@ -173,8 +167,7 @@ def make_step_impl(program, options, batched: bool = False):
         meta = detect_schur_structure(program, options)
         if (meta is not None and not use_sparse_schur(meta, options)
                 and fused_schur_supported(program, options, meta)):
-            return make_fused_schur_lm_step(program, options, meta,
-                                            batched=batched)
+            return make_fused_schur_lm_step(program, options, meta)
     linear_solve = _make_linear_solver(program, options)
     dtype = program.dtype
     use_jacobi_scaling = options.jacobi_scaling
@@ -199,12 +192,10 @@ def make_step_impl(program, options, batched: bool = False):
 
     def lm_step(x, radius, scale):
         if mixed and refine_iters == 0:
-            # Mixed precision: the jacfwd tangent chains run natively in
-            # f32 (f64 jvp is software-emulated on TPU and dominates the
-            # profile); cost keeps f64 meaning via a residual-only f64
-            # pass inside linearize_fn_mixed.
-            cost, grad, jac, res = program.linearize_fn_mixed(
-                x, allow_pallas=not batched)
+            # Mixed precision: the jacfwd tangent chains run in f32;
+            # cost keeps f64 meaning via a residual-only f64 pass inside
+            # linearize_fn_mixed.
+            cost, grad, jac, res = program.linearize_fn_mixed(x)
             jac64 = res64 = grad64 = None
             scale = scale.astype(jnp.float32)
         elif mixed:
@@ -335,8 +326,7 @@ def make_step_impl(program, options, batched: bool = False):
         (dogleg_strategy.cc:130-265), in the Jacobi-scaled space like the
         reference (fixed iteration-0 scaling passed in by the minimizer)."""
         if mixed:
-            cost, grad, jac, res = program.linearize_fn_mixed(
-                x, allow_pallas=not batched)
+            cost, grad, jac, res = program.linearize_fn_mixed(x)
             scale = scale.astype(jnp.float32)
         else:
             cost, grad, jac, res = program.linearize_fn(x)
@@ -648,7 +638,7 @@ def _maybe_downgrade_options(options, program, summary):
         elif (t == LinearSolverType.SPARSE_SCHUR
               and structure.nf > 4096
               and not _sparse_schur_ok(structure, options)):
-            # Dense S is the MXU-native reduced-system form; past a few
+            # Dense S is the device-native reduced-system form; past a few
             # thousand cameras its O(nf^2) memory/factorization loses to
             # the block-sparse host LDL^T (schur_sparse.py — the
             # schur_complement_solver.cc:291 regime) when the structure

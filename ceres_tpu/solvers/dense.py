@@ -4,8 +4,8 @@ Capability parity with the reference's DenseQRSolver
 (internal/ceres/dense_qr_solver.cc, dense_qr.cc) and
 DenseNormalCholeskySolver (dense_normal_cholesky_solver.cc,
 dense_cholesky.cc). The Eigen/LAPACK/cuSOLVER backends collapse into
-jnp.linalg / jax.scipy.linalg, which XLA lowers to TPU-native
-factorizations.
+jnp.linalg / jax.scipy.linalg, which XLA lowers to the device's
+factorization libraries (cuSOLVER on the GPU).
 
 Both solve the damped least-squares step
     min_d ||J d + r||^2 + ||diag(D) d||^2

@@ -2,13 +2,12 @@
 
 The generic step path (solver.py make_step_impl + solvers/schur.py SchurOps)
 is assembled from reusable pieces, each of which re-reads the bucket
-Jacobian from HBM and re-scatters into global vectors: cast, gradient
-(J^T r), squared column norms, scale_columns (a full J rebuild), column
-norms again, the chunk-layout gather, E^T E, the explicit-S products, and
-back-substitution. Profiled on a v5e at BAL-16-22106 scale that pipeline
-costs ~39 ms per LM iteration, dominated not by FLOPs (~1 GFLOP) but by
-redundant HBM passes, [n, 3]-indexed scatters, and tiny-shape host-style
-linalg (a [144,144] cho_factor alone measured 3.5 ms).
+Jacobian from device memory and re-scatters into global vectors: cast,
+gradient (J^T r), squared column norms, scale_columns (a full J rebuild),
+column norms again, the chunk-layout gather, E^T E, the explicit-S
+products, and back-substitution. At BAL scale that pipeline is bound not
+by FLOPs (~1 GFLOP per iteration at BAL-16-22106) but by redundant passes
+over J and [n, 3]-indexed scatters.
 
 This module replaces the WHOLE LM step for Schur-structured problems with
 a single fused pipeline (the reference's SchurEliminator role,
@@ -25,7 +24,7 @@ translated):
      (scale is a rank-1 congruence: no scale_columns pass over J);
   5. eliminate: S = blockdiag(FtF) - A^T (EtE)^-1 A with a closed-form
      batched SPD inverse for te <= 3; solve the [nf, nf] reduced system
-     (Pallas in-VMEM Cholesky on TPU, LAPACK-style fallback elsewhere);
+     with a dense Cholesky factorization (or CG for ITERATIVE_SCHUR);
   6. back-substitute and assemble the step, model cost change, step/grad
      norms from the e/f parts.
 
@@ -49,28 +48,26 @@ import jax.numpy as jnp
 import jax.scipy.linalg as jsl
 import numpy as np
 
-# TPU f32 matmuls default to bf16 passes (~1e-3 relative error) — enough to
-# push the damped Schur complement indefinite at typical LM damping levels.
-# Large contractions (one-hot reductions, the S correction) run as matmuls
-# at HIGHEST (true f32, 6 bf16 passes — cheap at matmul-friendly shapes).
-# The per-row outer products contract over r=2/k<=16 — matmul-hostile
-# shapes that the MXU pads to 128-tiles; those run as broadcast
-# multiply-reduce on the VPU instead (exact f32, no precision passes).
+# f32 matmuls at default precision may run in reduced precision (TF32 on
+# the GPU's tensor cores, ~1e-3 relative error) — enough to push the
+# damped Schur complement indefinite at typical LM damping levels. Large
+# contractions (one-hot reductions, the S correction) therefore run at
+# HIGHEST (true f32). The per-row outer products contract over r=2/k<=16,
+# shapes no matrix unit helps with; those run as broadcast multiply-reduce
+# (exact f32).
 _einsum = functools.partial(jnp.einsum, precision=jax.lax.Precision.HIGHEST)
 
 
 def _outer_rt(Ja, Jb):
-    """sum_r Ja[..., r, :] (x) Jb[..., r, :] -> [..., ta, tb] (VPU)."""
+    """sum_r Ja[..., r, :] (x) Jb[..., r, :] -> [..., ta, tb]."""
     return jnp.sum(Ja[..., :, :, None] * Jb[..., :, None, :], axis=-3)
 
 
 def _chunk_gather(T, rows, mask):
     """T [n, ...] -> T[rows] * mask, rows [ne, k].
 
-    Gathers FLAT rows (trailing dims collapsed) then reshapes: XLA's TPU
-    gather on [n, r, t] arrays with tiny trailing dims runs row-by-row
-    (~0.8 ms at BAL-16 scale); the same gather over [n, r*t] runs at
-    ~0.2 ms (measured, N=64 chained)."""
+    Gathers FLAT rows (trailing dims collapsed) then reshapes, so each
+    index moves one contiguous r*t row instead of r*t scalars."""
     trail = T.shape[1:]
     flat = jnp.take(T.reshape(T.shape[0], -1), rows.reshape(-1), axis=0)
     out = flat.reshape(rows.shape + trail)
@@ -78,7 +75,7 @@ def _chunk_gather(T, rows, mask):
 
 
 def _rvec_rt(Ja, rg):
-    """sum_r Ja[..., r, :] * rg[..., r] -> [..., ta] (VPU)."""
+    """sum_r Ja[..., r, :] * rg[..., r] -> [..., ta]."""
     return jnp.sum(Ja * rg[..., None], axis=-2)
 
 from ..types import LinearSolverType, PreconditionerType
@@ -166,7 +163,7 @@ def fused_schur_supported(program, options, meta) -> bool:
 
 def _explicit_viable(meta) -> bool:
     """Dense S + materialized A = E^T F affordable? The caps keep peak
-    HBM for A + inv(EtE)A + S around ~4 GB on a 16 GB chip; past them the
+    device memory for A + inv(EtE)A + S around ~4 GB; past them the
     matrix-free implicit apply takes over. Explicit wins whenever it fits:
     the CG operator becomes one [nf, nf] matvec (~us) instead of a walk
     over the chunk tensors (~ms)."""
@@ -219,23 +216,14 @@ def _spd_inv_small(M):
 
 
 def _spd_solve_dense(S, rhs):
-    """Solve S y = rhs for one dense SPD [m, m] system. Pallas in-VMEM
-    Cholesky on TPU (a [144,144] lax cho_factor costs ~3.5 ms there — the
-    blocked LAPACK-style lowering is built for matrices 100x larger);
-    cho_factor elsewhere. NaN on indefinite S, as the caller's invalid-step
-    retry expects."""
-    m = S.shape[0]
-    if (S.dtype == jnp.float32 and m <= 1024
-            and jax.default_backend() != "cpu"
-            and not os.environ.get("CERES_TPU_NO_PALLAS")
-            and not os.environ.get("CERES_TPU_NO_PALLAS_CHOL")):
-        from ..ops.pallas_kernels import chol_solve_small
-        return chol_solve_small(S, rhs)
+    """Solve S y = rhs for one dense SPD [m, m] system by Cholesky
+    (cuSOLVER on the GPU, LAPACK on the CPU). NaN on indefinite S, as the
+    caller's invalid-step retry expects."""
     c, lower = jsl.cho_factor(S)
     return jsl.cho_solve((c, lower), rhs)
 
 
-def make_fused_schur_lm_step(program, options, meta, batched: bool = False):
+def make_fused_schur_lm_step(program, options, meta):
     """Returns lm_step(x, radius) -> out dict (same contract as
     solver.make_step_impl's lm_step)."""
     from ..loss import correct_residuals_and_jacobian
@@ -292,14 +280,12 @@ def make_fused_schur_lm_step(program, options, meta, batched: bool = False):
     # Mixed mode rhs accuracy: f32 J·r products carry the f32 input
     # rounding, which costs ~1-2 extra LM iterations at BAL scale vs f64.
     # CERES_TPU_F64_RHS=1 computes the e/f gradients from the f64 Jacobian
-    # before the cast. Measured on the v5e bench: 9 -> 8 iterations but
-    # +6 ms/iteration (f64 chunk gather + emulated-f64 reductions) — a net
-    # wall-time loss, so OFF by default; the knob exists for problems
-    # where trajectory fidelity matters more than wall time.
+    # before the cast, at the price of an f64 chunk gather and f64
+    # reductions every iteration; OFF by default, for problems where
+    # trajectory fidelity matters more than wall time.
     f64_rhs = mixed and bool(os.environ.get("CERES_TPU_F64_RHS"))
 
     cross_pairs = []
-    pimp = None
     if not explicit:
         # camera-chunk layouts for the matrix-free apply (host, once)
         for plan in bucket_plan:
@@ -330,44 +316,6 @@ def make_fused_schur_lm_step(program, options, meta, batched: bool = False):
              if plan["bs"].f_cols is not None
              and plan["bs"].e_slot is not None])
 
-        # Pallas CG-apply megakernel (ops/pallas_implicit.py): runs each
-        # CG application as tf lane-aligned 1-D v-row gathers + one
-        # plane kernel + one camera-chunk reduce. MEASURED ON HARDWARE
-        # (round 5, 1024 cams / 1M obs, benchmarks/hw_r5): 217.9 ms per
-        # CG application vs 24.2 ms for the XLA chain it replaces — the
-        # kernel's 18 one-dimensional million-element gathers per
-        # application (9 v-row expansions + 9 output remaps) are ~9x
-        # more gather traffic than the XLA path's 2-3, and TPU gather
-        # throughput, not HBM bandwidth, is the binding constraint at
-        # this scale. OFF by default; CERES_TPU_PALLAS_IMPLICIT=1 opts
-        # in (small-problem interpret parity is still tested).
-        if (mixed and not f64_rhs and len(bucket_plan) == 1
-                and os.environ.get("CERES_TPU_PALLAS_IMPLICIT")
-                and bucket_plan[0]["bs"].e_slot is not None
-                and bucket_plan[0]["bs"].f_cols is not None):
-            from ..ops.pallas_implicit import make_pallas_implicit_apply
-            plan0 = bucket_plan[0]
-            k_imp = plan0["bs"].chunk_rows.shape[1]
-            pimp = make_pallas_implicit_apply(
-                ne, k_imp, te, tf, kf,
-                __import__("jax").default_backend())
-            if pimp is not None:
-                rows0 = plan0["bs"].chunk_rows
-                fids_np = np.asarray(plan0["local"])[rows0]     # [ne, k]
-                fids_pad = np.concatenate(
-                    [fids_np,
-                     np.zeros((pimp.ne_pad - ne, k_imp), fids_np.dtype)],
-                    axis=0).T.astype(np.int32)                  # [k, ne_pad]
-                program.register_const("schur.fused.pimp.fids_t",
-                                       np.ascontiguousarray(fids_pad))
-                camr_np = np.asarray(
-                    program.consts_np[f"schur.fused.cam{plan0['bi']}.rows"])
-                camr2 = ((camr_np % k_imp) * pimp.ne_pad
-                         + camr_np // k_imp).astype(np.int32)
-                program.register_const("schur.fused.pimp.camr2",
-                                       camr2.reshape(-1))
-
-
     # Split-phase structure: _lin_phase is radius-INdependent
     # (linearize + eliminate-ready scaled Grams); _solve_phase applies the
     # LM damping for a given radius and solves. The fused while-loop skips
@@ -375,45 +323,6 @@ def make_fused_schur_lm_step(program, options, meta, batched: bool = False):
     # diagonal across rejections, levenberg_marquardt_strategy.cc
     # reuse_diagonal_), re-running only the damped solve.
     keep_chunks = not (explicit and mixed and not iterative)
-
-    # Pallas lin-phase front-end (ops/pallas_lin.py): for the Snavely BA
-    # hot shape the jacfwd chains + E-side Grams + scaled A run in one
-    # hand-vectorized kernel; the solve phase then reads A in its
-    # transposed [te, nf, ne] layout and computes ||J_s d||^2 from the
-    # Gram blocks, so the chunk tensors are never materialized.
-    plin = None
-    from ..ops.pallas_lin import pallas_lin_supported, make_pallas_lin
-    if not batched and pallas_lin_supported(program, options, meta,
-                                            explicit, mixed, f64_rhs):
-        # None when the VMEM fit or the Mosaic probe compile fails —
-        # the generic lin phase then serves both minimizer loops.
-        plin = make_pallas_lin(program, options, meta)
-    if plin is not None:
-        keep_chunks = False
-    # Double-single candidate-cost kernel (ops/pallas_cost.py): the f64
-    # residual pass the fused loop runs at every candidate measured
-    # ~0.95 ms/iteration (f64 is software-emulated on TPU) — the ds
-    # kernel delivers the same cost to ~2^-48 relative on f32 VPU
-    # planes. Gated to the same Snavely structure as the lin kernel.
-    pcost = None
-    if plin is not None and not os.environ.get("CERES_TPU_NO_PALLAS_COST"):
-        from ..ops.pallas_cost import make_pallas_cost
-        pcost = make_pallas_cost(program, options, meta)
-    # Whole-solve dense PCG kernel (ops/pallas_pcg.py): the explicit-S
-    # ITERATIVE_SCHUR reduced solve runs as ONE Mosaic program with S,
-    # the preconditioner inverse, and every CG vector VMEM-resident —
-    # S is read from HBM once per damped solve instead of once per CG
-    # iteration per operand (the XLA loop's ~10 narrow fusions per
-    # iteration measured 0.0118 ms/apply vs a 0.0001 ms ideal).
-    ppcg = None
-    if (iterative and explicit and work_dtype == jnp.float32
-            and not batched):
-        from ..ops.pallas_pcg import dense_pcg, dense_pcg_available
-        if dense_pcg_available(kf * tf,
-                               options.max_linear_solver_iterations,
-                               options.min_linear_solver_iterations,
-                               options.eta):
-            ppcg = dense_pcg
 
     def _split_scale(scale):
         """Full tangent scale vector -> (s_e [ne, te], s_f [kf, tf])."""
@@ -447,111 +356,14 @@ def make_fused_schur_lm_step(program, options, meta, batched: bool = False):
 
     def _lin_phase(x, scale):
         s_e, s_f = _split_scale(scale)
-        if plin is not None:
-            s_e = jnp.pad(s_e, ((0, plin.ne_pad - ne), (0, 0)),
-                          constant_values=1.0)
-            return _lin_phase_pallas(x, s_e, s_f, None)
         return _lin_phase_generic(x, s_e, s_f, None)
 
     def _lin_phase_carry(x, s_e, s_f, first, known_cost=None):
         # known_cost: f64 total cost at x, already evaluated by the
         # minimizer (the accepted candidate's cost from the previous
         # iteration) — skips the linearize phase's own f64 residual pass,
-        # which measured ~0.96 ms/iteration at BAL-16 scale (~26% of the
-        # fused step).
-        if plin is not None:
-            return _lin_phase_pallas(x, s_e, s_f, first, known_cost)
+        # which is one full f64 residual evaluation per iteration.
         return _lin_phase_generic(x, s_e, s_f, first, known_cost)
-
-    # elim2 plane mode: the full solve tail (damping, inverse, z,
-    # back-substitution inputs, mcc) stays in the LIN kernel's PLANE
-    # layout, and the per-point damped inverse runs INSIDE the elim2
-    # kernel — no [ne, te, te] tensors, no transposes, ~25 fewer XLA
-    # fusions per damped solve. Flagship (DENSE mixed) only; the
-    # iterative-explicit and bounds paths keep the tensor art.
-    use_planes = (plin is not None and plin.elim2 is not None
-                  and not iterative and mixed
-                  and not program.has_bounds
-                  and not os.environ.get("CERES_TPU_NO_PALLAS_ELIM2"))
-
-    def _lin_phase_pallas(x, s_e_in, s_f_in, first, known_cost=None):
-        bk = program.buckets[0]
-        if known_cost is not None:
-            total_cost = known_cost.astype(dtype)
-        else:
-            loss = program._bucket_loss(bk)  # uniform scalars or None
-            r64 = program._bucket_residuals(bk, x)
-            cost, _, _ = correct_residuals_and_jacobian(loss, r64, None)
-            total_cost = jnp.asarray(program.fixed_cost,
-                                     dtype=dtype) + jnp.sum(cost)
-
-        out = plin.lin(x, s_e_in, first)
-        s_e = out["s_e"]              # resolved IN-KERNEL (pad rows 1)
-        A_eT = out["A_eT"]            # [te, kf*tf, ne_pad], e-scaled
-        FtF, g_f = out["FtF"], out["g_f"]        # grid-accumulated
-
-        cn_f = jnp.diagonal(FtF, axis1=-2, axis2=-1)
-        diag_f_of = lambda s_f: jnp.clip(s_f * s_f * cn_f,   # noqa: E731
-                                         min_diag, max_diag)
-        g_f_flat = g_f.reshape(kf * tf)
-
-        if use_planes:
-            ete_t, ge_t, se_t = out["ete_t"], out["ge_t"], out["se_t"]
-            if first is None:
-                s_f = s_f_in
-            elif not use_jacobi_scaling:
-                s_f = jnp.ones_like(cn_f)
-            else:
-                s_f = jnp.where(first, 1.0 / (1.0 + jnp.sqrt(cn_f)),
-                                s_f_in)
-            se_outer = (se_t[:, None, :] * se_t[None, :, :]
-                        ).reshape(te * te, -1)
-            etes_t = ete_t * se_outer
-            gse_t = ge_t * se_t
-            cn_t = jnp.stack([ete_t[a * te + a] for a in range(te)])
-            diag_t = jnp.clip(se_t * se_t * cn_t, min_diag, max_diag)
-            grad_max = jnp.maximum(jnp.max(jnp.abs(ge_t)),
-                                   jnp.max(jnp.abs(g_f_flat))
-                                   ).astype(dtype)
-            grad_norm = jnp.sqrt(jnp.vdot(ge_t, ge_t)
-                                 + jnp.vdot(g_f_flat, g_f_flat)
-                                 ).astype(dtype)
-            return dict(cost=total_cost, A_eT=A_eT,
-                        etes_t=etes_t, gse_t=gse_t, diag_t=diag_t,
-                        se_t=se_t, s_e=s_e, s_f=s_f,
-                        sA=s_f.reshape(kf * tf),
-                        FtF_s=FtF * (s_f[:, :, None] * s_f[:, None, :]),
-                        g_sf=(g_f * s_f).reshape(kf * tf),
-                        diag_f=diag_f_of(s_f),
-                        grad_max=grad_max, grad_norm=grad_norm)
-
-        EtE, g_e = out["EtE"], out["g_e"]        # [ne_pad, ...], pad rows 0
-        cn_e = jnp.diagonal(EtE, axis1=-2, axis2=-1)
-        _, s_f = _resolve_scale(cn_e, cn_f, s_e, s_f_in, first)
-        diag_e = jnp.clip(s_e * s_e * cn_e, min_diag, max_diag)
-        diag_f = diag_f_of(s_f)
-        EtE_s = EtE * (s_e[:, :, None] * s_e[:, None, :])
-        FtF_s = FtF * (s_f[:, :, None] * s_f[:, None, :])
-        sA = s_f.reshape(kf * tf)
-        g_se = g_e * s_e
-        g_sf = (g_f * s_f).reshape(kf * tf)
-
-        grad_max = jnp.maximum(jnp.max(jnp.abs(g_e)),
-                               jnp.max(jnp.abs(g_f_flat))).astype(dtype)
-        grad_norm = jnp.sqrt(jnp.vdot(g_e, g_e)
-                             + jnp.vdot(g_f_flat, g_f_flat)).astype(dtype)
-
-        art = dict(cost=total_cost, EtE_s=EtE_s, FtF_s=FtF_s, A_s=None,
-                   A_eT=A_eT, g_se=g_se, g_sf=g_sf, s_e=s_e,
-                   s_f=s_f, sA=sA, diag_e=diag_e, diag_f=diag_f,
-                   grad_max=grad_max, grad_norm=grad_norm)
-        if program.has_bounds:
-            grad = jnp.zeros((program.num_effective,), dtype=g_e.dtype)
-            grad = jax.lax.dynamic_update_slice(
-                grad, g_e[:ne].reshape(-1), (e_slab,))
-            grad = jax.lax.dynamic_update_slice(grad, g_f_flat, (f_slab,))
-            art["grad_full"] = grad.astype(dtype)
-        return art
 
     def _lin_phase_generic(x, s_e_in, s_f_in, first, known_cost=None):
         total_cost = jnp.asarray(program.fixed_cost, dtype=dtype)
@@ -568,23 +380,18 @@ def make_fused_schur_lm_step(program, options, meta, batched: bool = False):
             bk, bs, bi = plan["bk"], plan["bs"], plan["bi"]
             loss = program._bucket_loss(bk)
             if mixed and not f64_rhs:
-                # Mixed precision: the jacfwd tangent chains run NATIVELY
-                # in f32 (f64 jvp is software-emulated on TPU and
-                # dominated the step profile); cost comes from a cheap
-                # f64 residual-only pass so trust-region tolerances keep
-                # their f64 meaning. (The f64 residuals also feed the
-                # corrected rc below, so the pass stays even when the
-                # minimizer carries the cost; the carried-cost saving
-                # applies in full on the pallas lin path, where the f64
-                # pass existed only for the cost.)
+                # Mixed precision: the jacfwd tangent chains run in f32;
+                # cost comes from a cheap f64 residual-only pass so
+                # trust-region tolerances keep their f64 meaning. (The
+                # f64 residuals also feed the corrected rc below, so the
+                # pass stays even when the minimizer carries the cost.)
                 r64 = program._bucket_residuals(bk, x)
                 if known_cost is None:
                     cost, _, _ = correct_residuals_and_jacobian(
                         loss, r64, None)
                     total_cost = total_cost + jnp.sum(cost)
                 _, J32 = program._bucket_linearize(
-                    bk, x, cast_dtype=jnp.float32,
-                    allow_pallas=not batched)
+                    bk, x, cast_dtype=jnp.float32)
                 _, rc, Jc = correct_residuals_and_jacobian(
                     loss, r64.astype(work_dtype), J32)
                 rc = rc.astype(work_dtype)
@@ -659,8 +466,8 @@ def make_fused_schur_lm_step(program, options, meta, batched: bool = False):
                     # Implicit mode: one-hot-free camera-chunk reduction
                     # (the [ne*k, kf] one-hot is unaffordable in the
                     # large-camera regime this mode exists for). Trailing
-                    # dims are flattened before the gather — the TPU
-                    # gather over tiny trailing dims runs row-by-row.
+                    # dims are flattened before the gather (see
+                    # _chunk_gather).
                     oh = None
                     camr = program.const(f"schur.fused.cam{bi}.rows")
                     camm = program.const(f"schur.fused.cam{bi}.mask"
@@ -795,13 +602,9 @@ def make_fused_schur_lm_step(program, options, meta, batched: bool = False):
         return art
 
     def _solve_phase(art, radius):
-        if "etes_t" in art:
-            return _solve_phase_planes(art, radius)
         total_cost = art["cost"]
         EtE_s, FtF_s = art["EtE_s"], art["FtF_s"]
         A_s = art.get("A_s")
-        A_eT = art.get("A_eT")      # pallas layout [te, kf*tf, ne_pad],
-        #                             E-scaled, f-UNSCALED
         g_se, g_sf = art["g_se"], art["g_sf"]
         s_e, s_f, sA = art["s_e"], art["s_f"], art["sA"]
         chunk_store = art.get("chunks", [])
@@ -817,26 +620,10 @@ def make_fused_schur_lm_step(program, options, meta, batched: bool = False):
         b_f = -g_sf                                      # [kf*tf]
         z = _einsum("nij,nj->ni", inv_ete, b_e)          # (EtE)^-1 b_e
 
-        Ay = None           # A_s y, reused by back-sub AND the Gram-
-        #                     identity ||J_s d||^2 (computed once)
         if explicit:
-            if A_eT is not None:
-                # f scaling is a rank-1 congruence on the REDUCED
-                # outputs (S_corr, rhs) — A itself is never rescaled.
-                if plin is not None and plin.elim is not None:
-                    npad = A_eT.shape[-1]
-                    inv_t = inv_ete.reshape(npad, te * te).T
-                    scorr_u, rhsa_u = plin.elim(A_eT, inv_t, z.T)
-                else:
-                    Y = _einsum("nuv,vfn->ufn", inv_ete, A_eT)
-                    scorr_u = _einsum("ufn,ugn->fg", A_eT, Y)
-                    rhsa_u = _einsum("ufn,nu->f", A_eT, z)
-                rhs = b_f - sA * rhsa_u
-                S_corr = scorr_u * (sA[:, None] * sA[None, :])
-            else:
-                rhs = b_f - _einsum("nuf,nu->f", A_s, z)
-                Y = _einsum("nuv,nvf->nuf", inv_ete, A_s)
-                S_corr = _einsum("nuf,nug->fg", A_s, Y)
+            rhs = b_f - _einsum("nuf,nu->f", A_s, z)
+            Y = _einsum("nuv,nvf->nuf", inv_ete, A_s)
+            S_corr = _einsum("nuf,nug->fg", A_s, Y)
             ii = jnp.arange(kf)
             S = (-S_corr).reshape(kf, tf, kf, tf).at[ii, :, ii, :].add(
                 FtF_s + D2_f[..., None] * jnp.eye(tf, dtype=work_dtype)
@@ -845,25 +632,6 @@ def make_fused_schur_lm_step(program, options, meta, batched: bool = False):
             if not iterative:
                 y = _spd_solve_dense(S, rhs)
                 lin_iters = jnp.asarray(1, dtype=jnp.int32)
-            elif ppcg is not None:
-                blocks = _precond_blocks(
-                    FtF_s + D2_f[..., None] * jnp.eye(tf,
-                                                      dtype=work_dtype),
-                    S, kf, tf, options.preconditioner_type)
-                if blocks is None:                   # IDENTITY
-                    Minv_dense = jnp.eye(kf * tf, dtype=work_dtype)
-                else:
-                    inv = _spd_inv_small(blocks)
-                    ii2 = jnp.arange(kf)
-                    Minv_dense = jnp.zeros(
-                        (kf, tf, kf, tf), dtype=work_dtype
-                    ).at[ii2, :, ii2, :].set(inv).reshape(kf * tf,
-                                                          kf * tf)
-                y, lin_iters = ppcg(
-                    S, rhs, Minv_dense,
-                    max_iterations=options.max_linear_solver_iterations,
-                    min_iterations=options.min_linear_solver_iterations,
-                    q_tolerance=options.eta)
             else:
                 from .cg import conjugate_gradients
                 precond = _block_precond(
@@ -881,16 +649,15 @@ def make_fused_schur_lm_step(program, options, meta, batched: bool = False):
                 lin_iters = result.num_iterations
 
             # back-substitute: d_e = (EtE)^-1 (b_e - A y)
-            Ay = (_einsum("ufn,f->nu", A_eT, sA * y) if A_eT is not None
-                  else _einsum("nuf,f->nu", A_s, y))
-            d_e = _einsum("nij,nj->ni", inv_ete, b_e - Ay)
+            d_e = _einsum("nij,nj->ni", inv_ete,
+                          b_e - _einsum("nuf,f->nu", A_s, y))
         else:
             # ---- implicit (matrix-free) ITERATIVE_SCHUR over the chunk
             # tensors — the large-camera-count regime where A [ne,te,nf]
             # and dense S are unaffordable (implicit_schur_complement.h
             # role in the fused layout). Scaled chunk tensors are built
-            # once; each CG application is a handful of VPU broadcast
-            # products + two one-hot matmuls.
+            # once; each CG application is a handful of broadcast
+            # products + two camera-chunk reductions.
             # gather/camera-chunk forms: the one-hot [rows, kf] matrix
             # is ~0.4 GB at 256 cameras and would be re-read every CG
             # application; instead f values are row-taken by camera id
@@ -924,32 +691,6 @@ def make_fused_schur_lm_step(program, options, meta, batched: bool = False):
                 """[rows..., tf] -> [kf, tf] by camera-chunk gather+sum."""
                 flat = contrib.reshape((-1,) + contrib.shape[-1:])
                 return jnp.sum(flat[camr] * camm[..., None], axis=1)
-
-            use_pimp = (pimp is not None and len(sstore) == 1
-                        and sstore[0][0] == "e")
-            if use_pimp:
-                # plane layouts built ONCE per damped solve, reused by
-                # every CG application
-                _, Je_s0, Jf_s0, _, camr0, camm0, _ = sstore[0]
-                jeT, jfT, invT = pimp.to_planes(Je_s0, Jf_s0, inv_ete)
-                fids_t = program.const("schur.fused.pimp.fids_t")
-                camr2f = program.const("schur.fused.pimp.camr2")
-                k_imp = Jf_s0.shape[1]
-
-                def apply_S_pallas(v):
-                    vb = v.reshape(kf, tf)
-                    v32 = vb.astype(jnp.float32)
-                    # tf lane-aligned 1-D gathers -> [tf, k, ne_pad]
-                    vrowT = jnp.stack(
-                        [jnp.take(v32[:, t], fids_t) for t in range(tf)])
-                    C = pimp.apply(jeT, jfT, invT, vrowT)
-                    outs = []
-                    for t in range(tf):
-                        taken = jnp.take(C[t].reshape(-1), camr2f)
-                        outs.append(jnp.sum(
-                            taken.reshape(camr0.shape) * camm0, axis=1))
-                    out = jnp.stack(outs, axis=1).astype(work_dtype)
-                    return (out + D2_f * vb).reshape(kf * tf)
 
             def apply_S(v):
                 vb = v.reshape(kf, tf)
@@ -1018,8 +759,7 @@ def make_fused_schur_lm_step(program, options, meta, batched: bool = False):
 
             from .cg import conjugate_gradients
             result = conjugate_gradients(
-                apply_S_pallas if use_pimp else apply_S,
-                rhs, jnp.zeros_like(rhs),
+                apply_S, rhs, jnp.zeros_like(rhs),
                 apply_preconditioner=precond,
                 max_iterations=options.max_linear_solver_iterations,
                 q_tolerance=options.eta,
@@ -1046,16 +786,6 @@ def make_fused_schur_lm_step(program, options, meta, batched: bool = False):
             Dd_sq = jnp.sum(D2_e * d_e * d_e) + jnp.sum(
                 D2_f.reshape(kf * tf) * y * y)
             Jd_sq = -d_dot_g - Dd_sq
-        elif explicit and not chunk_store:
-            # Pallas lin-phase path: no chunk tensors live. ||J_s d||^2
-            # from the Gram blocks — exact because J^T J =
-            # [[EtE, A], [A^T, blockdiag(FtF)]] for the BA structure
-            # (F blocks never share a residual row). Ay = A_s y is
-            # REUSED from the back-substitution (A read once).
-            yb2 = y.reshape(kf, tf)
-            Jd_sq = (jnp.vdot(d_e, _einsum("nuv,nv->nu", EtE_s, d_e))
-                     + 2.0 * jnp.vdot(d_e, Ay)
-                     + jnp.vdot(yb2, _einsum("ctu,cu->ct", FtF_s, yb2)))
         else:
             # Exact ||J_s d||^2 via the stored chunk tensors: required for
             # f64 tail digits (the identity cancels catastrophically near
@@ -1092,12 +822,12 @@ def make_fused_schur_lm_step(program, options, meta, batched: bool = False):
                 Jd_sq = Jd_sq + jnp.vdot(Jd, Jd)
         mcc = -(d_dot_g + 0.5 * Jd_sq)
 
-        delta_e = (s_e * d_e).astype(dtype)       # [ne(_pad), te]
+        delta_e = (s_e * d_e).astype(dtype)              # [ne, te]
         delta_f = (sA * y).astype(dtype)                 # [kf*tf] block order
         delta = jnp.zeros((program.num_effective,), dtype=dtype)
         if e_slab is not None:
             delta = jax.lax.dynamic_update_slice(
-                delta, delta_e[:ne].reshape(-1), (e_slab,))
+                delta, delta_e.reshape(-1), (e_slab,))
         else:
             delta = delta.at[meta.c("e_cols", meta.e_cols)].set(delta_e)
         if f_slab is not None:
@@ -1118,62 +848,6 @@ def make_fused_schur_lm_step(program, options, meta, batched: bool = False):
             out["gradient_full"] = art["grad_full"]
         return out
 
-    def _solve_phase_planes(art, radius):
-        """Damped solve with everything e-sided in PLANE layout: one
-        elim2 kernel (damp + inverse + z + S_corr/rhs), the dense
-        reduced solve, and a plane-form back-substitution/mcc — the
-        [ne, te, te] tensors and their transposes never exist."""
-        total_cost = art["cost"]
-        A_eT = art["A_eT"]
-        gse_t, diag_t = art["gse_t"], art["diag_t"]
-        se_t = art["se_t"]
-        s_f, sA = art["s_f"], art["sA"]
-        FtF_s, g_sf, diag_f = art["FtF_s"], art["g_sf"], art["diag_f"]
-
-        rad = radius.astype(work_dtype)
-        scorr_u, rhsa_u, inv_t, z_t = plin.elim2(
-            A_eT, art["etes_t"], gse_t, diag_t, rad)
-        b_f = -g_sf
-        rhs = b_f - sA * rhsa_u
-        S_corr = scorr_u * (sA[:, None] * sA[None, :])
-        D2_f = diag_f / rad
-        ii = jnp.arange(kf)
-        S = (-S_corr).reshape(kf, tf, kf, tf).at[ii, :, ii, :].add(
-            FtF_s + D2_f[..., None] * jnp.eye(tf, dtype=work_dtype)
-        ).reshape(kf * tf, kf * tf)
-        y = _spd_solve_dense(S, rhs)
-        lin_iters = jnp.asarray(1, dtype=jnp.int32)
-
-        # back-substitute in planes: d_e = inv (b_e - A y)
-        Ay_t = _einsum("ufn,f->un", A_eT, sA * y)       # [te, ne_pad]
-        bmA = -gse_t - Ay_t
-        inv_r = inv_t.reshape(te, te, -1)
-        d_e_t = _einsum("ijn,jn->in", inv_r, bmA)       # [te, ne_pad]
-
-        d_dot_g = jnp.sum(d_e_t * gse_t) + jnp.vdot(y, g_sf)
-        Dd_sq = jnp.sum((diag_t / rad) * d_e_t * d_e_t) \
-            + jnp.sum(D2_f.reshape(kf * tf) * y * y)
-        # exact direct solve: ||J_s d||^2 = d.b - ||D d||^2
-        Jd_sq = -d_dot_g - Dd_sq
-        mcc = -(d_dot_g + 0.5 * Jd_sq)
-
-        delta_e_t = (se_t * d_e_t).astype(dtype)        # [te, ne_pad]
-        delta_f = (sA * y).astype(dtype)
-        delta = jnp.zeros((program.num_effective,), dtype=dtype)
-        delta = jax.lax.dynamic_update_slice(
-            delta, delta_e_t.T[:ne].reshape(-1), (e_slab,))
-        delta = jax.lax.dynamic_update_slice(delta, delta_f, (f_slab,))
-
-        return {
-            "cost": total_cost,
-            "gradient_max_norm": art["grad_max"],
-            "gradient_norm": art["grad_norm"],
-            "delta": delta,
-            "model_cost_change": mcc.astype(dtype),
-            "step_norm": jnp.linalg.norm(delta),
-            "lin_iters": lin_iters,
-        }
-
     def lm_step(x, radius, scale):
         return _solve_phase(_lin_phase(x, scale), radius)
 
@@ -1181,22 +855,13 @@ def make_fused_schur_lm_step(program, options, meta, batched: bool = False):
     # solve phase needs nothing beyond the art pytree (identity-mcc
     # explicit mixed mode — otherwise the chunk tensors would live in the
     # while-loop carry).
-    # (the pallas lin-phase keeps no chunk tensors, so iterative-explicit
-    # becomes split-capable too)
-    lm_step.split_ok = explicit and mixed and (not iterative
-                                               or plin is not None)
+    lm_step.split_ok = not keep_chunks
     lm_step.linearize = _lin_phase
     lm_step.linearize_carry = _lin_phase_carry
-    ne_carry = plin.ne_pad if plin is not None else ne
     lm_step.scale_carry_example = (
-        jax.ShapeDtypeStruct((ne_carry, te), work_dtype),
+        jax.ShapeDtypeStruct((ne, te), work_dtype),
         jax.ShapeDtypeStruct((kf, tf), work_dtype))
     lm_step.solve_from = _solve_phase
-    lm_step.pallas_lin = plin is not None
-    lm_step.pallas_elim = plin is not None and plin.elim is not None
-    lm_step.pallas_implicit = pimp is not None and not explicit
-    lm_step.pallas_pcg = ppcg is not None
-    lm_step.cost_fn = pcost       # None -> minimizer uses program.cost_fn
 
     return lm_step
 
@@ -1257,14 +922,12 @@ def _build_cam_chunks(program, local, chunk_rows, chunk_mask, name, kf):
 
 def _sj_chunk_blocks(Ge_s, M, fids, dup: bool):
     """Per-lane contributions to the S block diagonal, TRANSPOSED:
-    returns [tf*tf, k, ne] (row t*tf+v) with the long row axis TRAILING.
-    A [n, k, tf, tf] result tiles its LAST TWO dims to (8, 128) on TPU —
-    a 25x padding expansion that OOM'd the 1M-observation implicit config
-    (16.4 G demanded of a 16 G v5e); with (k, ne) trailing the pad is
-    ~k->8 only. Math: Ge^T inv(EtE) Ge per lane; with dup=True (some
-    camera observes the same point through more than one row) the
-    within-chunk cross terms between same-camera lanes are included via
-    a k^2 pass, keeping the SCHUR_JACOBI blocks the exact diagonal of S.
+    returns [tf*tf, k, ne] (row t*tf+v) with the long row axis TRAILING
+    (tiny trailing dims would pad badly in a [n, k, tf, tf] layout).
+    Math: Ge^T inv(EtE) Ge per lane; with dup=True (some camera observes
+    the same point through more than one row) the within-chunk cross
+    terms between same-camera lanes are included via a k^2 pass, keeping
+    the SCHUR_JACOBI blocks the exact diagonal of S.
     Shared by the single-device and sharded implicit assemblies."""
     ne, k, u, tf = Ge_s.shape
     Ge_t = Ge_s.transpose(2, 3, 1, 0)                    # [u, t, k, ne]
@@ -1342,8 +1005,8 @@ def _precond_from_blocks(blocks, kf, tf):
 
     The inverse is materialized ONCE (closed form for tf <= 3, Cholesky
     against the identity otherwise) so every CG application is a single
-    broadcast multiply-reduce — batched tiny triangular solves inside the
-    CG body cost milliseconds per application on TPU."""
+    broadcast multiply-reduce instead of batched tiny triangular solves
+    inside the CG body."""
     inv = _spd_inv_small(blocks)
 
     def apply(v):
@@ -1353,22 +1016,14 @@ def _precond_from_blocks(blocks, kf, tf):
     return apply
 
 
-def _precond_blocks(P_blocks, S, kf, tf, kind):
-    """[kf, tf, tf] preconditioner blocks for the fused ITERATIVE_SCHUR
-    CG, or None for IDENTITY. JACOBI: block diagonal of F^T F
+def _block_precond(P_blocks, S, kf, tf, kind, S_corr):
+    """Preconditioner apply for the fused ITERATIVE_SCHUR CG over an
+    explicit S, or None for IDENTITY. JACOBI: block diagonal of F^T F
     (+damping); SCHUR_JACOBI: block diagonal of S itself (exact, since
     S is materialized here)."""
     if kind == PreconditionerType.IDENTITY:
         return None
     if kind == PreconditionerType.SCHUR_JACOBI:
-        return S.reshape(kf, tf, kf, tf)[jnp.arange(kf), :,
-                                         jnp.arange(kf), :]
-    return P_blocks
-
-
-def _block_precond(P_blocks, S, kf, tf, kind, S_corr):
-    """Preconditioner apply for the XLA CG loop (block layout)."""
-    blocks = _precond_blocks(P_blocks, S, kf, tf, kind)
-    if blocks is None:
-        return None
-    return _precond_from_blocks(blocks, kf, tf)
+        P_blocks = S.reshape(kf, tf, kf, tf)[jnp.arange(kf), :,
+                                             jnp.arange(kf), :]
+    return _precond_from_blocks(P_blocks, kf, tf)

@@ -4,10 +4,10 @@ The reference's SchurComplementSolver<...>::SolveReducedLinearSystem for
 SPARSE_SCHUR (schur_complement_solver.cc:291) assembles the Schur
 complement S = F'F - F'E (E'E)^-1 E'F as a BLOCK-SPARSE matrix over the
 camera co-visibility pattern and factorizes it with a sparse Cholesky
-(SuiteSparse/Eigen). The TPU-native split here mirrors the
+(SuiteSparse/Eigen). The device/host split here mirrors the
 SPARSE_NORMAL_CHOLESKY design (solvers/sparse_direct.py):
 
-  * device (MXU): per-(point, camera-pair) block products over the chunk
+  * device: per-(point, camera-pair) block products over the chunk
     layout, segment-summed into the UNIQUE co-visibility pair blocks —
     one [npairs, t, t] tensor is all that crosses to the host;
   * host (native C++): scatter the pair blocks into a cached scalar CSC
@@ -15,11 +15,11 @@ SPARSE_NORMAL_CHOLESKY design (solvers/sparse_direct.py):
     iteration (the CHOLMOD role, with RCM/AMD fill-reducing ordering).
 
 Unlike the dense explicit-S path (`schur.py _assemble_S*`, the
-MXU-native form for small camera counts), memory here is
+device-native form for small camera counts), memory here is
 O(co-visibility pairs * t^2), not O(nf^2): this is the regime past a few
 thousand cameras, and it needs no [n, kf] one-hot anywhere.
 
-Routing (see `use_sparse_schur`): SPARSE_SCHUR keeps the dense-S MXU path
+Routing (see `use_sparse_schur`): SPARSE_SCHUR keeps the dense-S path
 up to SPARSE_SCHUR_DENSE_NF tangent columns (where a [nf, nf] Cholesky is
 faster than a host round-trip), switches to this path above it when the
 structure is supported, and falls back to the ITERATIVE_SCHUR rewrite
@@ -39,7 +39,7 @@ import numpy as np
 from .. import native
 from ..types import LinearSolverType
 
-# Below this many camera-space tangent columns, dense S on the MXU beats
+# Below this many camera-space tangent columns, dense S on the device beats
 # the host factorization round-trip; above it, O(nf^2) memory loses to the
 # block-sparse pattern.
 SPARSE_SCHUR_DENSE_NF = 1024

@@ -1,8 +1,8 @@
 """SPARSE_NORMAL_CHOLESKY via the native host factorization.
 
-TPU-native split of the reference's SparseNormalCholeskySolver
+Device/host split of the reference's SparseNormalCholeskySolver
 (sparse_normal_cholesky_solver.cc + inner_product_computer.cc +
-suitesparse.cc): the device (MXU) computes per-bucket Gram blocks
+suitesparse.cc): the device computes per-bucket Gram blocks
 G_k = J_k^T J_k and the rhs J^T r in one fused jit; a `jax.pure_callback`
 hands the Gram values to the host, where the native C++ runtime scatters
 them into a cached CSC pattern (symbolic analysis done once — the

@@ -5,7 +5,7 @@ LM over a single parameter vector, no Problem object), plus the
 tiny_solver_autodiff_function.h role (derivatives from the residual functor
 automatically — here jax.jacfwd). The whole solve is one jitted
 lax.while_loop; call it inside larger jitted programs (e.g. batched across
-thousands of tiny problems with vmap — the TPU superpower the reference's
+thousands of tiny problems with vmap — the use the reference's
 TinySolver hints at).
 """
 

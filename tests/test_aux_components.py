@@ -205,7 +205,7 @@ def test_tiny_solver_rosenbrock_ls():
 
 
 def test_tiny_solver_vmapped_batch():
-    """The TPU win: solve thousands of tiny problems in one batched call."""
+    """The accelerator win: solve thousands of tiny problems in one batched call."""
     targets = jnp.asarray(np.random.default_rng(0).normal(size=(64, 2)))
 
     def solve_one(t):

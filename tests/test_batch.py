@@ -1,6 +1,6 @@
 """Batched solves (ceres_tpu/batch.py): N structurally-identical
 problems in one vmapped fused device program. No reference analog — a
-TPU-native capability (RANSAC hypotheses, per-frame refinement,
+accelerator-native capability (RANSAC hypotheses, per-frame refinement,
 multi-start). Correctness anchor: every batch element must match its own
 individual ct.solve() run."""
 
@@ -223,48 +223,30 @@ def test_registry_not_reused_across_different_graphs():
                                    rtol=1e-9)
 
 
-def test_batched_bal_with_pallas_linearize_consts():
-    """Regression for the round-4 'plinz.b0.dat' crash: a BAL-shaped
-    batch whose TEMPLATE program already carries Pallas-linearize data
-    planes (registered by a prior single mixed-precision solve). The
-    batched vmap trace must gate the kernel off (allow_pallas=False)
-    rather than record a constant the sibling programs don't have."""
-    import os
+def test_batched_bal_mixed_matches_single():
+    """A BAL-shaped mixed-precision batch after a single solve has
+    compiled and cached the template's program: each batch element
+    matches its own single mixed solve (same fused step, vmapped)."""
+    options = ct.SolverOptions(
+        linear_solver_type=ct.LinearSolverType.DENSE_SCHUR,
+        use_mixed_precision_solves=True,
+        max_num_iterations=40, function_tolerance=1e-9,
+        fused_iterations=True)
 
-    os.environ["CERES_TPU_PALLAS_INTERPRET"] = "1"
-    try:
-        options = ct.SolverOptions(
-            linear_solver_type=ct.LinearSolverType.DENSE_SCHUR,
-            use_mixed_precision_solves=True,
-            max_num_iterations=40, function_tolerance=1e-9,
-            fused_iterations=True)
+    def build(perturb_seed):
+        bal = synthetic_bal_problem(num_cameras=4, num_points=60,
+                                    num_observations=240, seed=11,
+                                    pixel_noise=0.5)
+        bal.perturb(rotation_sigma=0.02, translation_sigma=0.1,
+                    point_sigma=0.05, seed=perturb_seed)
+        return build_bal_ceres_problem(bal)[0]
 
-        def build(perturb_seed):
-            bal = synthetic_bal_problem(num_cameras=4, num_points=60,
-                                        num_observations=240, seed=11,
-                                        pixel_noise=0.5)
-            bal.perturb(rotation_sigma=0.02, translation_sigma=0.1,
-                        point_sigma=0.05, seed=perturb_seed)
-            return build_bal_ceres_problem(bal)[0]
-
-        # a single mixed solve first: its cached program traces the
-        # Pallas linearize path and registers plinz.* consts
-        warm = build(1)
-        s0 = ct.solve(options, warm)
-        assert s0.is_solution_usable()
-        from ceres_tpu.program import CompiledProgram
-        prog = CompiledProgram.get_cached(build(1), options)
-        # (the interpret-mode Snavely kernel may or may not register
-        # plinz consts depending on gate decisions; the crash shape is
-        # exercised either way because the batch records const names
-        # from a template whose single-solve trace ran with Pallas on)
-        sums = ct.solve_batched(options, [build(s) for s in (1, 2, 3)])
-        for s_b, seed in zip(sums, (1, 2, 3)):
-            ref = ct.solve(options, build(seed))
-            assert s_b.termination_type == ct.TerminationType.CONVERGENCE
-            # batched gates the Pallas kernel off while the individual
-            # mixed solve keeps it on -> small f32 path differences
-            np.testing.assert_allclose(s_b.final_cost, ref.final_cost,
-                                       rtol=1e-4)
-    finally:
-        del os.environ["CERES_TPU_PALLAS_INTERPRET"]
+    warm = build(1)
+    s0 = ct.solve(options, warm)
+    assert s0.is_solution_usable()
+    sums = ct.solve_batched(options, [build(s) for s in (1, 2, 3)])
+    for s_b, seed in zip(sums, (1, 2, 3)):
+        ref = ct.solve(options, build(seed))
+        assert s_b.termination_type == ct.TerminationType.CONVERGENCE
+        np.testing.assert_allclose(s_b.final_cost, ref.final_cost,
+                                   rtol=1e-6)

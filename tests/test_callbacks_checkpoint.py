@@ -107,7 +107,7 @@ def test_dump_linear_problem(tmp_path):
 
 def test_trust_region_problem_dump(tmp_path):
     """solver.h:724-734: per-iteration (J, residuals, gradient, x, delta,
-    radius) dumps, npz format (the TPU-native
+    radius) dumps in npz format (the role of
     DumpLinearLeastSquaresProblem)."""
     import glob
     import jax.numpy as jnp
